@@ -9,6 +9,8 @@ at a ladder of sizes, recording e2e wall clock, stage timers, peak
 RSS for BOTH binaries, and LAV equivalence at every rung.
 
 Artifact-quality rules (VERDICT r4 weak 1/2):
+  * every run is a fresh child process; this orchestrator never
+    initialises JAX, so on a GPU only one process holds the card;
   * every binary's RSS is measured in its OWN fresh wrapper process
     (RUSAGE_CHILDREN of a wrapper that ran nothing else), never from
     this orchestrator's cumulative child high-water mark;
@@ -126,6 +128,12 @@ def run_refworker(binpath, tpath, qpath, outpath, flags=()):
 
 
 def _spawn_json(argv):
+    # one JAX process per card: every run is a child, and this
+    # orchestrator never initialises a JAX backend itself
+    if "jax" in sys.modules:
+        from jax._src import xla_bridge
+        assert not xla_bridge.backends_are_initialized(), \
+            "bench_scaling's parent process must stay off the device"
     r = subprocess.run(argv, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(r.stderr[-1500:])

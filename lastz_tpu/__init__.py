@@ -1,11 +1,12 @@
-"""lastz_tpu — a TPU-native pairwise DNA local aligner.
+"""lastz_tpu — a pairwise DNA local aligner in JAX.
 
-A from-scratch re-design of the capabilities of LASTZ (Harris 2007;
-reference implementation studied at /root/reference) for TPU hardware:
-the seed-and-extend pipeline is expressed as staged array programs
-(JAX/XLA) with Pallas kernels for the hot dynamic-programming loops,
-while an exact host engine provides bit-identical golden-output parity
-with the reference for every supported output format.
+A from-scratch re-design of the capabilities of LASTZ (Harris 2007)
+for an accelerator: the seed-and-extend pipeline is expressed as
+staged array programs (JAX/XLA) with a CUDA kernel for the gapped
+dynamic-programming rows, while an exact host engine provides
+bit-identical golden-output parity with the reference for every
+supported output format.  accel.py decides which stages run on the
+device.
 
 Layers (bottom to top; see SURVEY.md for the reference layer map):
   core/     encodings, score sets, spaced-seed patterns
@@ -13,33 +14,38 @@ Layers (bottom to top; see SURVEY.md for the reference layer map):
   index/    seed position index over the target (host + device builds)
   search/   seed-hit search, diagonal filtering, gap-free extension
   align/    segment tables, chaining, y-drop gapped extension, tweener
-  ops/      Pallas TPU kernels (x-drop, y-drop wavefront DP, seed scan)
+  ops/      device programs (hit generation, x-drop, exact y-drop) and
+            the CUDA y-drop row kernel
   parallel/ device-mesh sharding of the query stream and target index
   out/      output writers (lav/gfa/axt/maf/sam/cigar/general/...)
 """
 
+import os
+
 __version__ = "0.1.0"
+
+# one fixed cache directory inside the checkout (listed in .gitignore)
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".jax_cache")
+
+
+def compile_cache_dir(environ=os.environ):
+    """The persistent compilation cache this package sets, or None
+    where JAX_COMPILATION_CACHE_DIR is set (JAX then reads it itself
+    and nothing else is set)."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return CACHE_DIR
 
 
 def _setup_jax_cache():
-    """Persistent XLA compilation cache: every compile in this
-    environment runs on the (weak) local host, so cache hits are
-    worth minutes.  Applied at package import so all entry points
-    (CLI, tests, benches, direct module use) share it."""
-    import os
-    import tempfile
-    cache_dir = os.environ.get(
-        "LASTZ_TPU_JAX_CACHE",
-        os.path.join(tempfile.gettempdir(), "lastz_tpu_jax_cache"))
-    if not cache_dir or cache_dir == "0":
+    cache_dir = compile_cache_dir()
+    if cache_dir is None:
         return
-    try:
-        import jax
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update(
-            "jax_persistent_cache_min_compile_time_secs", 2)
-    except Exception:
-        pass
+    import jax
+    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
 
 
 _setup_jax_cache()

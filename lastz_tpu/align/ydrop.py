@@ -18,8 +18,9 @@ All the semantics that are observable in golden outputs are preserved:
     warning when the arena would overflow, lastz.c default 80 MB),
   * trivial self-alignment injection and removal.
 
-This module is the correctness oracle; ops/ydrop_pallas.py implements
-the batched TPU version of the same recurrence.
+This module is the correctness oracle; ops/ydrop_exact.py (with the
+CUDA row kernel of ops/ydrop_cuda.py) implements the batched device
+version of the same recurrence.
 """
 
 from __future__ import annotations
@@ -1499,10 +1500,10 @@ def gapped_extend(target, query, scoring, anchors: SegmentTable,
     """reference gapped_extend (gapped_extend.c:1012), unpartitioned path.
 
     Returns list of Alignment in increasing-start order.  When
-    use_device (default: LASTZ_TPU_DEVICE env) is on, extensions run
-    batched through the exact TPU kernel and only anchors whose DP
-    could interact with previously accepted alignments fall back to
-    the host engine (see align/ydrop_device.py).
+    use_device (default: accel.device_enabled()) is on, extensions run
+    batched through the exact device kernel and only anchors whose DP
+    could interact with previously accepted alignments are re-extended
+    by the host engine (see align/ydrop_device.py).
     """
     thresh = score_thresh.s if score_thresh is not None else 0
 
@@ -1524,7 +1525,8 @@ def gapped_extend(target, query, scoring, anchors: SegmentTable,
                    hsp_id=seg.hsp_id if seg.hsp_id else k + 1)
         msps.append(g)
 
-    from .ydrop_device import DeviceYDrop, device_enabled
+    from ..accel import device_enabled, run_device_stage
+    from .ydrop_device import DeviceYDrop
     if use_device is None:
         use_device = device_enabled()
     device = None
@@ -1652,23 +1654,9 @@ def gapped_extend(target, query, scoring, anchors: SegmentTable,
             use_dev = False
             _x["dev-skip in-bbox"] = _x.get("dev-skip in-bbox", 0) + 1
         if use_dev:
-            try:
-                device.result_for(k)
-                use_dev = device.statuses_ok(k)
-            except RuntimeError as e:
-                # accelerator backend unavailable/dead: permanently
-                # fall back to the host engine (mirrors the seed
-                # stage's device-search fallback, engine.py:159)
-                import os as _os
-                if _os.environ.get("LASTZ_TPU_DEVICE_STRICT"):
-                    raise
-                import sys as _sys
-                _sys.stderr.write(
-                    "lastz_tpu: device gapped stage failed (%s); "
-                    "falling back to host\n" % type(e).__name__)
-                device = None
-                use_dev = False
-            if not use_dev and device is not None:
+            run_device_stage("gapped extension", device.result_for, k)
+            use_dev = device.statuses_ok(k)
+            if not use_dev:
                 _x["dev-skip status"] = _x.get("dev-skip status", 0) + 1
         if use_dev and n_bbox:
             r1lo, r1hi, r2lo, r2hi = device.explored_rect(k)

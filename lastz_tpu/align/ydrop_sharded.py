@@ -4,8 +4,8 @@ ever holds the whole target's codes, only its shard plus halo
 
 This is the gapped-stage half of the beyond-HBM story (the reference
 handles over-sized targets with wider-address builds, lastz_32/40,
-/root/reference/src/Makefile tiers; on TPU the equivalent limit is
-HBM, and the answer is sharding over the mesh).  The seed/HSP half
+/root/reference/src/Makefile tiers; on an accelerator the equivalent
+limit is device memory, and the answer is sharding over the mesh).  The seed/HSP half
 already runs shard-locally (search/sharded_mesh.py); here the y-drop
 kernel does too, exactly:
 
@@ -154,8 +154,8 @@ class ShardedTargetYDrop(DeviceYDrop):
         HI1v = vbase + np.clip(HI1.astype(np.int64) - win, 0, Wt)
         # the mesh-replicated output is re-placed for the (single
         # device) kernel launch; windows are bounded (B*Wt codes), so
-        # this hop is small — on a real pod the launch would instead
-        # ride ICI via device_put onto the kernel's device
+        # this hop is small — across cards the launch would instead
+        # move the windows by device_put onto the kernel's device
         v1c = jnp.asarray(np.asarray(wins).reshape(B * Wt))
         return (v1c,
                 jnp.asarray(A1v.astype(np.int32)),

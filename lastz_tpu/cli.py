@@ -160,7 +160,7 @@ def _show_defaults(cfg, to_stderr=False):
 
 
 HELP_TEXT = """\
-lastz_tpu -- TPU-native local pairwise DNA aligner (LASTZ-compatible)
+lastz_tpu -- local pairwise DNA aligner in JAX (LASTZ-compatible)
 usage: lastz_tpu target [query] [options]
 
 sequence specifiers (target/query):
@@ -427,7 +427,7 @@ def parse_options(argv: list[str], cfg: Config | None = None,
             cfg.cloned_query = True
             cfg.inhibit_trivial = True
         elif arg.startswith("--shard="):
-            # query sharding for multi-host farm-out (the TPU-native
+            # query sharding for multi-host farm-out (the device
             # analogue of the reference's capsule multi-process recipe,
             # capsule.c:6-15): worker i of n takes every n-th query
             try:
@@ -1305,9 +1305,14 @@ def main(argv=None):
     if getattr(cfg, "output_filename", None):
         out = open(cfg.output_filename, "w")
         close = True
+    from .accel import DeviceError
+
     try:
         try:
             return _run(cfg, out)
+        except DeviceError as e:
+            print(f"FAILURE: {e}", file=sys.stderr)
+            return 1
         except ValueError as e:
             # user-facing input errors (missing contigs, bad subranges,
             # malformed files) exit like the reference's suicide()

@@ -202,8 +202,6 @@ class Config:
     infer_control_filename: Optional[str] = None
     infer_scores_filename: Optional[str] = None
 
-    # runtime backend: "host" exact engine or "tpu" batched kernels
-    backend: str = "host"
     # score type: 'I' int32 (reference lastz) or 'D' double (lastz_D)
     score_type: str = "I"
 

@@ -3,10 +3,10 @@
 The reference capsule (capsule.c:6-15) writes the target sequence, its
 reverse, the seed position table and the seed into one binary file;
 readers mmap it read-only so many processes on a host share physical
-memory.  The TPU-native equivalent keeps the same contract -- build
+memory.  Our equivalent keeps the same contract -- build
 the index once, share it -- but stores our CSR position table
 (index/postable.py) instead of the reference's last/prev linked lists,
-and is the natural unit to broadcast to device HBM once per host.
+and is the natural unit to broadcast to device memory once per host.
 
 File layout: magic, 8-byte little-endian header length, a JSON header
 (sequence metadata, seed pattern, array directory), then raw
@@ -192,9 +192,9 @@ def unitize(v: int, by_thousands: bool = True) -> str:
 
 
 # ---------------------------------------------------------------------------
-# device residency: the TPU-native analogue of the reference's
+# device residency: the device analogue of the reference's
 # multi-process mmap sharing (capsule.c:6-15) — the index is built (or
-# loaded from a capsule) ONCE per host and pushed to device HBM once,
+# loaded from a capsule) ONCE per host and pushed to the device once,
 # then reused across queries, strands and runs in the process.
 # ---------------------------------------------------------------------------
 

@@ -1,8 +1,8 @@
-"""Interval-sharded target index for beyond-HBM targets.
+"""Interval-sharded target index for targets beyond one device's memory.
 
 The reference scales past 4 Gbp targets with wide-index builds
 (lastz_32 <= 4.3 Gbp, lastz_40 <= 1.1 Tbp, src/Makefile:19-25) on a
-big-memory host.  The TPU equivalent shards the target by interval
+big-memory host.  The device equivalent shards the target by interval
 across devices/hosts:
 
   * shard d owns word END positions in (bounds[d], bounds[d+1]]
@@ -18,15 +18,15 @@ across devices/hosts:
     (descending) enumeration order (pos_table.c:118-470) is preserved
     by probing shards in descending order — or by the merged view.
 
-HBM budget (why sharding is needed): the CSR costs ~4 bytes/indexed
-position + 4*(4^W) bytes of word starts, and the packed target codes
-1 byte/bp; a 16 GB HBM v5e chip replicating a 4.3 Gbp target spends
-~21 GB — over budget, while 8-way sharding needs ~2.7 GB/chip.
+Memory budget: the CSR costs ~4 bytes/indexed position + 4*(4^W)
+bytes of word starts, and the packed target codes 1 byte/bp, so a
+4.3 Gbp target needs ~21 GB replicated on every device; N-way
+sharding divides that by N.
 Downstream stages consume the index shard-locally: seed hits carry
 absolute pos1, so the diagonal-hash resolve and extension operate on
 the merged hit stream unchanged (extension windows gather from the
 shard slices with halo; hits near a border fetch the neighbour's
-slice over ICI).
+slice from the neighbour device).
 
 Query sharding (the capsule farm-out, capsule.c:6-15) composes with
 this: the mesh gets a (query, target-shard) grid.

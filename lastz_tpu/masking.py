@@ -5,9 +5,9 @@ ungapped mode) covered it.  With --masking=M, bases reaching M are
 replaced with 'x' in the target (coupling successive queries) and
 their seed words are removed from the position table.
 
-On TPU the census is a scatter-add per query batch followed by a psum
-across data-parallel workers; the host mirror here is the exact
-engine's version.
+On a device mesh the census is a scatter-add per query batch followed
+by a psum across data-parallel workers; the host mirror here is the
+exact engine's version.
 """
 
 from __future__ import annotations

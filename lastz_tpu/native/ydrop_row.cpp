@@ -4,7 +4,7 @@
 // gapped_extend.c:3683-3775) and the x-drop diagonal scan
 // (seed_search.c:2623-2700) are bit-exact ports of the semantics of
 // lastz_tpu's Python engine (which is itself the correctness oracle for
-// the Pallas TPU kernels).  Built as a plain-C-ABI shared library and
+// the device kernels).  Built as a plain-C-ABI shared library and
 // loaded via ctypes; no pybind11 required.
 //
 // Build:  g++ -O3 -march=native -shared -fPIC ydrop_row.cpp -o libydrop.so
@@ -1668,7 +1668,7 @@ void ydrop_sweep(
 // Single-core speed benchmark: run `rows` iterations of the row sweep
 // over a fixed-width band, entirely in native code (no per-row FFI
 // overhead).  This is the fair "reference C speed" baseline for the
-// TPU kernel: it is the same inner loop the reference's
+// device kernel: it is the same inner loop the reference's
 // ydrop_one_sided_align runs (gapped_extend.c:3683-3775).
 int64_t ydrop_bench(
     int64_t* CC, int64_t* DD, int64_t* MASK, uint8_t* tb,

@@ -50,8 +50,8 @@ OUT_CAP = 1 << 18         # max survivors per launch
 XD_SLICE = 1 << 15        # hits per x-drop sub-batch
 XD_CHUNK = 256            # cells per x-drop continuation round
 XD_FIRST = 64             # cells in the universal first pass
-# sentinel padding around device sequences; covers the Pallas query
-# window margin (ops/xdrop_pallas.QMARGIN) plus slack, 128-aligned
+# sentinel padding around device sequences (past any x-drop round's
+# reach beyond either end, so row slices never clamp)
 SEQ_PAD = 20608
 MAX_RESOLVE_ROUNDS = 64
 
@@ -189,8 +189,7 @@ def _xdrop_all(seq1p, seq2p, subflat, K, p1, p2, n, x_drop, step):
 
     Phase B: survivors are COMPACTED into XD_SLICE-wide waves and
     only those lanes run the multi-round continuation scan; dead
-    lanes never occupy gather bandwidth again (the per-element gather
-    throughput is the stage's wall on TPU).
+    lanes never occupy gather bandwidth again.
     """
     H = p1.shape[0]
     sl = min(XD_SLICE, H)
@@ -266,53 +265,6 @@ def _xdrop_waves(seq1p, seq2p, subflat, K, p1, p2, n, x_drop, step,
     _, _, _, best, kbest, consumed, _ = st
     kbest = jnp.where(best > 0, kbest, -1)
     return consumed, best, kbest
-
-
-def _xdrop_both_pallas(seq1_rows, qwin_rows, qoff, seq1p, seq2p,
-                       subflat, sub_tuple, K, p1, p2, n_l, n_r,
-                       x_drop, interpret):
-    """Both-direction scans via the Pallas kernel over target-sorted
-    hit blocks; window escapes (rare long scans) finish exactly in
-    the XLA wave continuation.
-
-    K is the PADDED subflat stride (16) used by the XLA continuation;
-    the kernel's select chain uses the tight stride implied by
-    sub_tuple (k_real x k_real)."""
-    from .xdrop_pallas import LMARGIN, NB, TS_ROWS, xdrop_scan_pallas
-    kp = int(round(len(sub_tuple) ** 0.5))
-
-    H = p1.shape[0]
-    order = jnp.argsort(p1)
-    iota = jnp.arange(H, dtype=jnp.int32)
-    p1s = p1[order]
-    p2s = p2[order]
-    nls = n_l[order]
-    nrs = n_r[order]
-    nblk = H // NB
-    first = p1s[::NB]
-    R1 = seq1_rows.shape[0]
-    base_rows = jnp.clip((first + SEQ_PAD - LMARGIN) // 128, 0,
-                         R1 - TS_ROWS)
-    base_rows = base_rows - (base_rows % 8)  # sublane-aligned DMA
-    p1rel = p1s + SEQ_PAD - jnp.repeat(base_rows * 128, NB)
-    p2rel = p2s + qoff
-    sh = (nblk, NB // 256, 256)
-    outs = xdrop_scan_pallas(
-        seq1_rows, qwin_rows, base_rows,
-        p1rel.reshape(sh), p2rel.reshape(sh),
-        nls.reshape(sh), nrs.reshape(sh),
-        sub_tuple, kp, x_drop, interpret=interpret)
-    inv = jnp.zeros(H, jnp.int32).at[order].set(iota)
-    res = [o.reshape(H)[inv] for o in outs]
-    (rc, rb, rk, rbase, rcum, rrun, resc,
-     lc, lb, lk, lbase, lcum, lrun, lesc) = res
-    rstate = (rbase, rcum, rrun, rb, rk, rc, resc.astype(bool))
-    right = _xdrop_waves(seq1p, seq2p, subflat, K, p1, p2, n_r,
-                         x_drop, +1, rstate)
-    lstate = (lbase, lcum, lrun, lb, lk, lc, lesc.astype(bool))
-    left = _xdrop_waves(seq1p, seq2p, subflat, K, p1 - 1, p2 - 1,
-                        n_l, x_drop, -1, lstate)
-    return left, right
 
 
 # ---------------------------------------------------------------------------
@@ -477,22 +429,19 @@ def _resolve_chains_recover_dev(extent_s, start2_s, diag_s, de0_s,
     jax.jit,
     static_argnames=("no_extend", "self_compare", "same_strand",
                      "use_thresh", "has_alive", "K", "nprobe",
-                     "H", "out_cap", "sub_tuple", "pallas_interpret",
+                     "H", "out_cap",
                      "x_drop", "recover", "has_resolve"))
 def hit_launch(seq1p, seq2p, subflat, csr_pos, alive_tab,
                cum, ends, karr, de, da,
                hit_base, total, chunk_lo,
                adj_start, step, seed_len, thresh, band,
                len1, len2,
-               seq1_rows=None, qwin_rows=None, qoff=None,
                csr_resolve=None, q_resolve=None, budgets=None,
                *, x_drop: int, no_extend: bool, self_compare: bool,
                same_strand: bool, use_thresh: bool, has_alive: bool,
                K: int, nprobe: int, recover: bool = False,
                has_resolve: bool = False,
-               H: int = HIT_BUDGET, out_cap: int = OUT_CAP,
-               sub_tuple: tuple | None = None,
-               pallas_interpret: bool = False):
+               H: int = HIT_BUDGET, out_cap: int = OUT_CAP):
     """One budgeted slice [hit_base, hit_base+H) of the chunk's
     candidate hits.  seq1p/seq2p are SEQ_PAD-padded compact codes;
     karr is this slice's precomputed pair index per hit
@@ -558,17 +507,10 @@ def hit_launch(seq1p, seq2p, subflat, csr_pos, alive_tab,
         # right: from pos1 to min(len1, len2+diag)
         stop1r = jnp.minimum(len1, len2 + diag)
         n_r = jnp.where(live, jnp.maximum(stop1r - pos1, 0), 0)
-        if sub_tuple is not None:
-            (lc, lb, lk), (rc, rb, rk) = _xdrop_both_pallas(
-                seq1_rows, qwin_rows, qoff, seq1p, seq2p, subflat,
-                sub_tuple, K, pos1, pos2, n_l, n_r, x_drop,
-                pallas_interpret)
-        else:
-            lc, lb, lk = _xdrop_all(seq1p, seq2p, subflat, K,
-                                    pos1 - 1, pos2 - 1, n_l, x_drop,
-                                    -1)
-            rc, rb, rk = _xdrop_all(seq1p, seq2p, subflat, K,
-                                    pos1, pos2, n_r, x_drop, +1)
+        lc, lb, lk = _xdrop_all(seq1p, seq2p, subflat, K,
+                                pos1 - 1, pos2 - 1, n_l, x_drop, -1)
+        rc, rb, rk = _xdrop_all(seq1p, seq2p, subflat, K,
+                                pos1, pos2, n_r, x_drop, +1)
         lscore = jnp.maximum(lb, 0)
         lstart = jnp.where(lb > 0, pos1 - 1 - lk, pos1)
         rscore = jnp.maximum(rb, 0)

@@ -186,8 +186,7 @@ def _get_fused(chunk, hslice):
     """Jitted fused scan: the whole multi-round chunked continuation
     runs in ONE device launch (lax.while over rounds), so a hit slice
     costs one upload of (p1, p2, n) and one download of the results —
-    no per-round host round trips (essential on remote-attached
-    accelerators)."""
+    no per-round host round trips."""
     key = (chunk, hslice)
     if key not in _JAX_FUSED:
         import jax

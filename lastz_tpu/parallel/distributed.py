@@ -5,9 +5,9 @@ host-0 output merge.
 The reference's only multi-process facility is the capsule farm-out:
 N single-threaded processes over query shards sharing one mmap'd
 target index, with per-shard outputs concatenated by the user
-(reference capsule.c:6-15 + README farm-out recipe).  The TPU-native
+(reference capsule.c:6-15 + README farm-out recipe).  The JAX
 equivalent (SURVEY.md §2 parallelism rows 2/5/6) runs one process per
-host under `jax.distributed`:
+host or per card under `jax.distributed`:
 
   * every process builds (or capsule-loads) the target index and
     takes every n-th query (`--shard=i/n` semantics, pipeline.py);
@@ -21,6 +21,13 @@ host under `jax.distributed`:
 Dynamic masking (cross-query coupling through the position table) is
 excluded, like the reference, whose farm-out recipe also cannot mask
 dynamically across processes.
+
+One process per card: two JAX processes cannot share one GPU (the
+first reserves three quarters of the card's memory when it starts),
+so on a GPU every process must drive cards of its own, e.g. through
+`jax.distributed.initialize(local_device_ids=...)` or disjoint
+CUDA_VISIBLE_DEVICES.  run_distributed refuses a group in which two
+processes hold the same card.
 
 Activation: LASTZ_TPU_DIST=1 in a process group initialized with
 `jax.distributed.initialize` (see tests/test_distributed.py for the
@@ -99,8 +106,9 @@ def allreduce_census_counts(count: np.ndarray) -> np.ndarray:
     return np.minimum(total, maxv).astype(count.dtype)
 
 
-def gather_texts(text: str) -> list[str] | None:
-    """Gather one string per process to process 0 (None elsewhere)."""
+def gather_texts(text: str, to_all: bool = False) -> list[str] | None:
+    """Gather one string per process to process 0 (None elsewhere), or
+    to every process with to_all."""
     import jax
     data = np.frombuffer(text.encode(), np.uint8)
     lens = allgather_i64(np.int64(len(data)))
@@ -108,10 +116,57 @@ def gather_texts(text: str) -> list[str] | None:
     pad = np.zeros(cap, np.uint8)
     pad[: len(data)] = data
     gathered = allgather_i64(pad)
-    if jax.process_index() != 0:
+    if jax.process_index() != 0 and not to_all:
         return None
     return [bytes(gathered[i, : int(lens[i])].astype(np.uint8)).decode()
             for i in range(gathered.shape[0])]
+
+
+def local_cards() -> list[list[str]]:
+    """[host, physical card] for each GPU this process drives (the CUDA
+    ordinal mapped through CUDA_VISIBLE_DEVICES)."""
+    import socket
+
+    import jax
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    order = [v.strip() for v in vis.split(",")] if vis else None
+    host = socket.gethostname()
+    cards = []
+    for d in jax.local_devices():
+        hw = int(d.local_hardware_id)
+        phys = order[hw] if order is not None and hw < len(order) \
+            else str(hw)
+        cards.append([host, phys])
+    return cards
+
+
+def shared_cards(per_process) -> list[tuple[str, str]]:
+    """Cards that more than one process claims; per_process[i] lists
+    process i's [host, card] pairs."""
+    owner, shared = {}, set()
+    for pid, cards in enumerate(per_process):
+        for c in map(tuple, cards):
+            if owner.setdefault(c, pid) != pid:
+                shared.add(c)
+    return sorted(shared)
+
+
+def check_one_process_per_card() -> None:
+    """Refuse (ValueError, on every process) a GPU group in which two
+    processes would share a card."""
+    import json
+
+    import jax
+    if jax.default_backend() != "gpu":
+        return
+    per_process = [json.loads(t) for t in
+                   gather_texts(json.dumps(local_cards()), to_all=True)]
+    shared = shared_cards(per_process)
+    if shared:
+        raise ValueError(
+            "distributed run: several processes share GPU(s) "
+            f"{shared}; give each process cards of its own "
+            "(jax.distributed.initialize(local_device_ids=...))")
 
 
 # -- the distributed query stage ---------------------------------------------
@@ -127,6 +182,7 @@ def run_distributed(pipeline, target, pt, make_worker_pipeline) -> None:
     LAV m-stanza) is global."""
     import jax
 
+    check_one_process_per_card()
     n = jax.process_count()
     pid = jax.process_index()
     cfg = pipeline.cfg

@@ -3,7 +3,7 @@
 The reference's scaling story is the target capsule: build the index
 once, then run N *processes in parallel* over query shards, each with
 the index mmap-shared (reference capsule.c:6-15).  This module is the
-TPU-native equivalent: N worker threads, one per mesh device, each
+device equivalent: N worker threads, one per mesh device, each
 running a worker Pipeline over its query shard (every N-th query —
 the same interleaving as `--shard=i/n`) with the target and position
 table shared read-only and every device launch pinned to the worker's

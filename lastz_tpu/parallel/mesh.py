@@ -2,11 +2,12 @@
 
 The reference's distribution story is "run N processes over query
 shards, sharing the target index via a mmapped capsule"
-(capsule.c:6-15 + README farm-out recipe).  The TPU-native design:
+(capsule.c:6-15 + README farm-out recipe).  The device-mesh design:
 
   * one `jax.sharding.Mesh` with a "dp" axis across all chips;
   * the target's seed index (CSR arrays), packed target codes and the
-    score tables are REPLICATED (read-only, small relative to HBM —
+    score tables are REPLICATED (read-only, small relative to device
+    memory —
     the reference reaches the same conclusion via mmap sharing);
   * query blocks (fixed-size padded code arrays) are SHARDED along
     dp, as are the anchor batches derived from them;
@@ -22,8 +23,8 @@ shards, sharing the target index via a mmapped capsule"
 Process-level sharding for production runs uses the same math via the
 CLI's query subsetting (`--shard=i/n`, mirroring the reference's
 capsule farm-out), so per-host outputs concatenate into the
-single-run output.  shard_map keeps every collective explicit; within
-a pod slice the psum and all_gather ride ICI.
+single-run output.  shard_map keeps every collective explicit; across
+the cards of one host the psum and all_gather ride NVLink.
 """
 
 from __future__ import annotations

@@ -248,19 +248,16 @@ class Pipeline:
         self._farm_cache = None
 
     def _farm_devices(self):
-        """Mesh devices for multi-chip query farm-out
-        (LASTZ_TPU_FARM=1 + an attached multi-device backend)."""
+        """Devices for multi-device query farm-out (LASTZ_TPU_FARM=1
+        with the device stages on and more than one device)."""
         if self._farm_cache is not None:
             return self._farm_cache
         devs = []
+        from .accel import device_enabled
         if (os.environ.get("LASTZ_TPU_FARM", "") not in ("", "0")
-                and os.environ.get("LASTZ_TPU_DEVICE", "")
-                not in ("", "0")):
-            try:
-                import jax
-                devs = jax.devices()
-            except Exception:
-                devs = []
+                and device_enabled()):
+            import jax
+            devs = jax.devices()
             if len(devs) < 2:
                 devs = []
         self._farm_cache = devs
@@ -384,9 +381,9 @@ class Pipeline:
         if target is None and cfg.read_capsule:
             # target + index come from the capsule; its seed/step
             # replace the defaults (lastz.c:8807-8813)
-            from .align.ydrop_device import device_enabled
+            from .accel import device_enabled
             if device_enabled() and cfg.dynamic_masking == 0:
-                # device path: push the capsule's index to HBM once
+                # device path: push the capsule's index to the device once
                 # and reuse it across queries/runs (capsule.c:6-15)
                 from .index.capsule import open_capsule_to_device
                 target, pt, self.device_index = open_capsule_to_device(
@@ -572,7 +569,7 @@ class Pipeline:
             self.stats.query_length += len(query.v)
             if cfg.shard_count > 1:
                 # process-level query sharding (--shard=i/n): the
-                # TPU-native analogue of the reference's capsule
+                # device analogue of the reference's capsule
                 # farm-out — each worker takes every n-th query and
                 # the per-shard outputs concatenate (capsule.c:6-15)
                 if (num_queries - 1) % cfg.shard_count != cfg.shard_index:
@@ -601,7 +598,7 @@ class Pipeline:
             if farm:
                 # multi-chip query farm-out: pin each query's device
                 # work (seed search + gapped kernels) to a mesh device
-                # round-robin — the TPU-native form of the reference's
+                # round-robin — the device form of the reference's
                 # capsule farm-out over processes (capsule.c:6-15).
                 # Per-query results are host-gathered in stream order,
                 # so output is identical for any device count.
@@ -786,7 +783,7 @@ class Pipeline:
         pos_table.c:118; the device build is the capsule-style
         'build once, share' path of SURVEY.md section 2 item 6)."""
         cfg = self.cfg
-        from .align.ydrop_device import device_enabled
+        from .accel import device_enabled, run_device_stage
         use_dev = (
             device_enabled()
             and os.environ.get("LASTZ_TPU_DEV_PT", "1") != "0"
@@ -797,14 +794,11 @@ class Pipeline:
             and cfg.dynamic_masking == 0
             and len(target.v) < (1 << 31))
         if use_dev:
-            try:
-                from .index.postable import (
-                    build_seed_position_table_device)
-                return build_seed_position_table_device(
-                    target.v, 0, len(target.v), UPPER_NUC_TO_BITS,
-                    cfg.seed, cfg.step)
-            except Exception:
-                pass  # fall back to the host build
+            from .index.postable import build_seed_position_table_device
+            return run_device_stage(
+                "position table build", build_seed_position_table_device,
+                target.v, 0, len(target.v), UPPER_NUC_TO_BITS,
+                cfg.seed, cfg.step)
         return build_seed_position_table(
             target.v, 0, len(target.v), UPPER_NUC_TO_BITS,
             cfg.seed, cfg.step)

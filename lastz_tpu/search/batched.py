@@ -52,12 +52,13 @@ MIN64 = np.int64(-(1 << 62))
 
 def _use_jax_backend() -> bool:
     # the fused device scan costs one launch + one fetch per hit
-    # slice, so it follows the device switch; LASTZ_TPU_XDROP_JAX
-    # forces it on/off independently
+    # slice, so it follows the device stages (accel.py);
+    # LASTZ_TPU_XDROP_JAX forces it on/off independently
     forced = os.environ.get("LASTZ_TPU_XDROP_JAX", "")
     if forced != "":
         return forced != "0"
-    return os.environ.get("LASTZ_TPU_DEVICE", "") not in ("", "0")
+    from ..accel import device_enabled
+    return device_enabled()
 
 
 def supported(engine) -> bool:

@@ -20,7 +20,7 @@ observable in golden outputs:
     seed_search.c:2528-2960);
   * marginal scores are entropy-adjusted (dna_utilities.c:2882).
 
-A batched TPU path (ops/) accelerates the same math; this engine is
+A batched device path (ops/) accelerates the same math; this engine is
 the source of truth and the oracle for its tests.
 """
 
@@ -152,25 +152,11 @@ class SeedSearchEngine:
                 r = mesh_search_via_env(self, n_shards, start, end)
                 if r is not None:
                     return r
+            from ..accel import run_device_stage
             from .device_hits import _device_search_enabled, device_search
             if _device_search_enabled():
-                self._dev_reported = False
-                try:
-                    r = device_search(self, start, end)
-                except Exception as e:  # device trouble: host replay
-                    if self._dev_reported:
-                        raise  # hits already delivered; can't replay
-                    if os.environ.get("LASTZ_TPU_DEVICE_STRICT"):
-                        raise
-                    import sys
-                    if not getattr(SeedSearchEngine,
-                                   "_dev_fail_warned", False):
-                        SeedSearchEngine._dev_fail_warned = True
-                        sys.stderr.write(
-                            "lastz_tpu: device search failed (%s); "
-                            "falling back to host replay\n"
-                            % type(e).__name__)
-                    r = None
+                r = run_device_stage("seed search", device_search, self,
+                                     start, end)
                 if r is not None:
                     return r
             from .native_sweep import native_hit_search

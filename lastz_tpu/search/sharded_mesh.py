@@ -26,8 +26,8 @@ Halo-gather at borders: a candidate whose extension consumed its
 whole clamped range while the true range continues past the resident
 halo is re-extended against a window GATHERED from the owning shards'
 device slices (never from a host copy of the target) — the window
-doubles until the scan terminates inside it.  On a real pod this
-gather rides ICI; hits needing it are rare (an extension must survive
+doubles until the scan terminates inside it.  Across cards this
+gather is a device-to-device copy; hits needing it are rare (an extension must survive
 EXT_HALO bases without dropping).
 
 Exactness: extension is speculative and unconstrained (identical to
@@ -141,7 +141,7 @@ class MeshShardedIndex:
 
     def gather_codes(self, lo: int, hi: int) -> np.ndarray:
         """Assemble compact codes for absolute range [lo, hi) from the
-        owning shards' DEVICE slices (the ICI halo-gather; the host
+        owning shards' DEVICE slices (the halo gather; the host
         target array is never consulted)."""
         from ..ops.hitgen import SEQ_PAD
         lo = max(lo, 0)

@@ -85,7 +85,7 @@ class RunStats:
         w(f"              HSPs: {_c(self.hsps)}\n")
         w("gapped extension:\n")
         w(f"           anchors: {_c(self.gapped_anchors)}\n")
-        w(f"  extended on TPU : {_c(self.gapped_device)}\n")
+        w(f"extended on device: {_c(self.gapped_device)}\n")
         w(f"  extended on host: {_c(self.gapped_host)}\n")
         w(f"        alignments: {_c(self.alignments)}\n")
         for k, v in self.extra.items():

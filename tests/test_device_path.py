@@ -1,4 +1,5 @@
-"""End-to-end device gapped-extension path (LASTZ_TPU_DEVICE=1).
+"""End-to-end device gapped-extension path (LASTZ_TPU_DEVICE=1, the
+XLA row kernel on the CPU backend).
 
 Runs the full pipeline twice on a synthetic related pair — host-only
 and device-batched — and requires byte-identical output with a
@@ -75,36 +76,3 @@ def test_device_path_matches_host(tmp_path, monkeypatch, fmt):
     n_dev = sum(i.stats_device for i in insts if i.ok)
     n_host = sum(i.stats_host for i in insts if i.ok)
     assert n_dev > 0, f"no anchors ran on device (host={n_host})"
-
-
-def test_pallas_device_path_matches_host(tmp_path, monkeypatch):
-    """Same equality, with the gapped mega-launch routed through the
-    Pallas chunk kernel (LASTZ_TPU_PALLAS=1, interpret mode on CPU)."""
-    t, q = _make_pair(tmp_path, n=2500, seed=13)
-    args = [t, q, "--format=lav", "--ydrop=3000"]
-
-    monkeypatch.delenv("LASTZ_TPU_DEVICE", raising=False)
-    monkeypatch.delenv("LASTZ_TPU_PALLAS", raising=False)
-    host_out = _run(args)
-
-    monkeypatch.setenv("LASTZ_TPU_DEVICE", "1")
-    monkeypatch.setenv("LASTZ_TPU_PALLAS", "1")
-    monkeypatch.setenv("LASTZ_TPU_PALLAS_G", "4")
-    import lastz_tpu.align.ydrop_device as ydd
-    monkeypatch.setattr(ydd, "DEFAULT_WIDTH", 256)
-    monkeypatch.setattr(ydd, "DEFAULT_ROWS", 256)
-    monkeypatch.setattr(ydd, "DEFAULT_BATCH", 6)
-
-    insts = []
-    orig_init = ydd.DeviceYDrop.__init__
-
-    def init2(self, *a, **kw):
-        orig_init(self, *a, **kw)
-        insts.append(self)
-
-    monkeypatch.setattr(ydd.DeviceYDrop, "__init__", init2)
-    dev_out = _run(args)
-
-    assert dev_out == host_out
-    n_dev = sum(i.stats_device for i in insts if i.ok)
-    assert n_dev > 0, "no anchors ran through the pallas kernel"

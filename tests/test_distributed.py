@@ -137,3 +137,13 @@ def test_two_process_distributed(tmp_path, census):
         assert spl.targ_census is not None
         np.testing.assert_array_equal(dist_census,
                                       spl.targ_census.count)
+
+
+def test_processes_sharing_a_card_are_refused():
+    """Two processes on one GPU cannot both hold it: the group check
+    names the shared card; disjoint cards pass."""
+    from lastz_tpu.parallel.distributed import shared_cards
+    assert shared_cards([[["h", "0"]], [["h", "1"]]]) == []
+    assert shared_cards([[["h", "0"]], [["g", "0"]]]) == []
+    assert shared_cards([[["h", "0"], ["h", "1"]],
+                         [["h", "1"]]]) == [("h", "1")]

@@ -25,7 +25,7 @@ def _related_pair(n, seed=3, ident=0.85, with_n=True):
     mut = rng.random(n) < (1 - ident)
     s2[mut] = alpha[rng.integers(0, 4, mut.sum())]
     # shuffle in an unrelated stretch and an N run (with_n=False keeps
-    # a pure-ACGT alphabet, K=4, so the Pallas scan gate K<=12 passes)
+    # a pure-ACGT alphabet)
     s2[n // 3: n // 3 + n // 10] = alpha[rng.integers(0, 4, n // 10)]
     if with_n:
         s2[n // 2: n // 2 + 5] = ord("N")
@@ -311,74 +311,6 @@ def test_device_search_with_device_pt():
     assert dev == ref
 
 
-PALLAS = dict(DEVICE)
-PALLAS["LASTZ_TPU_PALLAS"] = "interp"
-PALLAS["LASTZ_TPU_HIT_BUDGET"] = str(1 << 12)
-
-
-def test_pallas_scan_matches_scalar():
-    import lastz_tpu.ops.xdrop_pallas as xp
-    orig_nb, orig_lm = xp.NB, xp.LMARGIN
-    orig_scan = xp.xdrop_scan_pallas
-    calls = []
-
-    def counting_scan(*a, **k):
-        r = orig_scan(*a, **k)
-        calls.append(1)  # count COMPLETIONS: a trace-time error after
-        #                  invocation must not satisfy the assert
-        return r
-
-    xp.NB, xp.LMARGIN = 512, 2048
-    xp.xdrop_scan_pallas = counting_scan
-    try:
-        # pure-ACGT pair: an N run pushes the compact alphabet past
-        # the kernel's K<=12 gate and silently skips the kernel,
-        # making this test vacuous (the r4->r5 TPU worker crash hid
-        # behind exactly that)
-        s1, s2 = _related_pair(4000, seed=23, with_n=False)
-        ref = _collect(s1, s2, "1110100110010101111", 1,
-                       GFEX_XDROP, 3000, env=SCALAR)
-        dev = _collect(s1, s2, "1110100110010101111", 1,
-                       GFEX_XDROP, 3000, env=PALLAS)
-        assert len(ref) > 0
-        assert dev == ref
-        assert calls, "Pallas scan kernel was gated off — vacuous test"
-    finally:
-        xp.NB, xp.LMARGIN = orig_nb, orig_lm
-        xp.xdrop_scan_pallas = orig_scan
-
-
-def test_pallas_scan_escape_path():
-    # tiny margins force window escapes; the wave continuation must
-    # finish those scans exactly
-    import lastz_tpu.ops.xdrop_pallas as xp
-    saved = (xp.NB, xp.LMARGIN, xp.TS_ROWS, xp.QMARGIN)
-    orig_scan = xp.xdrop_scan_pallas
-    calls = []
-
-    def counting_scan(*a, **k):
-        r = orig_scan(*a, **k)
-        calls.append(1)  # count COMPLETIONS: a trace-time error after
-        #                  invocation must not satisfy the assert
-        return r
-
-    xp.NB, xp.LMARGIN, xp.TS_ROWS, xp.QMARGIN = 512, 256, 8, 256
-    xp.xdrop_scan_pallas = counting_scan
-    try:
-        s1, s2 = _related_pair(3000, seed=29, ident=0.95,
-                               with_n=False)
-        ref = _collect(s1, s2, "11111111111", 0, GFEX_XDROP, 1500,
-                       env=SCALAR)
-        dev = _collect(s1, s2, "11111111111", 0, GFEX_XDROP, 1500,
-                       env=PALLAS)
-        assert len(ref) > 0
-        assert dev == ref
-        assert calls, "Pallas scan kernel was gated off — vacuous test"
-    finally:
-        xp.NB, xp.LMARGIN, xp.TS_ROWS, xp.QMARGIN = saved
-        xp.xdrop_scan_pallas = orig_scan
-
-
 def test_native_xdrop_batch_matches_np():
     """xdrop_scan_batch (native) == batch_xdrop_np on random hits."""
     from lastz_tpu.native import get_lib
@@ -462,25 +394,19 @@ def test_overweight_seed_batched_dense_chains(env):
     assert bat == ref
 
 
-def test_seq_rows32_cache_keys_on_content():
-    """The Pallas row cache must key on sequence CONTENT: a strand
+def test_seq_device_cache_keys_on_content():
+    """The device sequence cache must key on sequence CONTENT: a strand
     loop's revcomp array can reuse a freed array's id(), and an
-    id-keyed hit then serves the OTHER strand's rows — silently
-    losing that strand's HSPs (pseudocat/pseudopig lost the whole
-    minus-strand section before the fix)."""
+    id-keyed hit then serves the OTHER strand's codes — silently
+    losing that strand's HSPs."""
     import gc
 
+    from lastz_tpu.ops.hitgen import SEQ_PAD
     from lastz_tpu.search import device_hits as dh
 
-    code_map = np.zeros(256, np.uint8)
+    code_map = np.zeros(256, np.int32)
     for i, c in enumerate(b"ACGT"):
         code_map[c] = i
-
-    def rows_payload(seq):
-        from lastz_tpu.ops.hitgen import SEQ_PAD
-        rows = np.asarray(dh._seq_rows32(seq, code_map))
-        flat = rows.reshape(-1)
-        return flat[SEQ_PAD:SEQ_PAD + len(seq)]
 
     rng = np.random.default_rng(0)
     alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -489,7 +415,9 @@ def test_seq_rows32_cache_keys_on_content():
     # happened on this run
     for _ in range(12):
         a = alpha[rng.integers(0, 4, 4096)]
-        np.testing.assert_array_equal(
-            rows_payload(a), code_map[a].astype(np.int32))
+        dev = np.asarray(dh._seq_device(a, code_map))
+        np.testing.assert_array_equal(dev[SEQ_PAD:SEQ_PAD + len(a)],
+                                      code_map[a])
+        assert not dev[:SEQ_PAD].any() and not dev[SEQ_PAD + len(a):].any()
         del a
         gc.collect()

@@ -77,7 +77,7 @@ def _kernel_windows(v1, v2, a1, a2, reversed_, rows=ROWS, width=WIDTH):
 
 
 @pytest.mark.parametrize("trim", [True, False])
-@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4, 5])
 def test_kernel_matches_host(seed, trim):
     rng = np.random.default_rng(seed)
     v1, v2 = _random_pair(rng, 500)
